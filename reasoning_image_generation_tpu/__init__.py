@@ -1,4 +1,4 @@
-"""reasoning_image_generation_tpu — TPU-native abstract-visual-reasoning data synthesizer.
+"""reasoning_image_generation_tpu — a JAX abstract-visual-reasoning data synthesizer.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 MrGu11/reasoning_image_generation (reference layout: ``src/`` sequence-puzzle
@@ -8,7 +8,7 @@ single-program batched renderer:
 - Element state is a struct-of-arrays tensor (``utils.state.ElementState``),
   not per-shape Python objects.
 - Rendering is a batched signed-distance-field rasterizer (``ops.raster``)
-  with an optional Pallas TPU kernel (``ops.raster_pallas``), replacing the
+  with a Pallas GPU kernel (``ops.raster_pallas``), replacing the
   reference's per-shape OpenCV draw calls (reference src/shapes.py:209).
 - Sequence rules are pure ``state -> state`` functions driven by
   ``lax.switch`` + ``lax.scan`` (``models.rpm.rules``), replacing the

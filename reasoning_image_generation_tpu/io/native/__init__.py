@@ -1,13 +1,16 @@
 # native/__init__.py — builds + loads the C fastpng encoder on demand.
 """ctypes binding for fastpng.c.
 
-Built lazily with the system C compiler (cc -O3 -shared -fPIC ... -lz) and
-cached next to the source; ctypes releases the GIL for the whole call, so
-the export thread pool encodes PNGs truly in parallel.
+Built lazily with the system C compiler (cc -O3 -shared -fPIC ... -lz) into
+``build/`` beside the source (gitignored), under a name keyed on a hash of
+fastpng.c, so a checkout always builds its own library from the committed
+source and an edited source never loads a stale one.  ctypes releases the
+GIL for the whole call, so the export thread pool encodes PNGs in parallel.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -16,21 +19,24 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "fastpng.c")
-_LIB = os.path.join(_HERE, "libfastpng.so")
+_BUILD = os.path.join(_HERE, "build")
 _lock = threading.Lock()
 _lib = None
 
 
 def _build() -> str:
-    if (os.path.exists(_LIB) and
-            os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-        return _LIB
+    with open(_SRC, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:16]
+    lib = os.path.join(_BUILD, f"libfastpng-{key}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(_BUILD, exist_ok=True)
     cc = os.environ.get("CC", "cc")
-    tmp = _LIB + ".tmp"
+    tmp = f"{lib}.{os.getpid()}.tmp"
     subprocess.run([cc, "-O3", "-shared", "-fPIC", _SRC, "-o", tmp, "-lz"],
                    check=True, capture_output=True)
-    os.replace(tmp, _LIB)
-    return _LIB
+    os.replace(tmp, lib)
+    return lib
 
 
 def _load():

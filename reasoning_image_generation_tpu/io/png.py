@@ -97,8 +97,7 @@ def write_png_rle(path: str, lengths: np.ndarray, colors: np.ndarray,
     write_png(path, img)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an RGB u8 image to path as PNG via the fastest backend."""
+def _backend():
     global _BACKEND
     if _BACKEND is None:
         fp = _try_fastpng()
@@ -107,7 +106,18 @@ def write_png(path: str, img: np.ndarray) -> None:
         else:
             cv = _try_cv2()
             _BACKEND = ("cv2", cv) if cv is not None else ("zlib", None)
-    name, mod = _BACKEND
+    return _BACKEND
+
+
+def backend_name() -> str:
+    """'fastpng' (the C encoder), 'cv2' or 'zlib': the encoder write_png
+    uses in this process."""
+    return _backend()[0]
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an RGB u8 image to path as PNG via the fastest backend."""
+    name, mod = _backend()
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 2:  # normalize grayscale BEFORE any channel flip
         img = np.repeat(img[..., None], 3, axis=2)

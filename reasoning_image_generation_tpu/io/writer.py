@@ -2,7 +2,7 @@
 """Asynchronous file export.
 
 The device produces whole batches; the host boundary (PNG encode + JSON
-dump) runs on a thread pool so export overlaps the next batch's TPU compute.
+dump) runs on a thread pool so export overlaps the next batch's device compute.
 This supersedes the reference's per-sample synchronous cv2.imwrite calls
 inside the worker processes (reference src/utils.py:17, src/generator.py:341).
 """

@@ -15,8 +15,8 @@ Replaces the reference's matplotlib/Agg figure rendering
   matplotlib: measured Agg cross sections fit
   alpha = style_alpha * clip(lw_px/2 + 0.5 - dist_px, 0, 1),
   and the transform for the reference's 8x8in/±5 bounds figure is
-  x_px = (410 + 61.6x) * dpi/100 (constants queried from matplotlib at
-  import when available).
+  x_px = (410 + 61.6x) * dpi/100 (matplotlib's constants, pinned in
+  ``data_to_pixel_transform``).
 """
 from __future__ import annotations
 
@@ -33,35 +33,23 @@ from .scene import MAX_SHAPES, MAX_MASKS, MAX_LINES
 # '#f8f9fa' set at generator.py:491 never shows).
 BG = (255.0, 255.0, 255.0)
 
-_TRANSFORM_CACHE = {}
+# matplotlib's data->display transform of the reference figure (8x8 in at
+# its 100 dpi, ax.set_aspect('equal'), ax.axis('off'), limits +-5;
+# multigraph_generation/generator.py:488-493): data (0, 0) lands at display
+# (410, 396) and (1, 0) at x = 471.6.  These are the values matplotlib
+# 3.x computes (tests/test_multigraph.py checks them against it).
+_FIG_DPI = 100.0
+_ORIGIN_PX = (410.0, 396.0)
+_UNIT_X_PX = 471.6
 
 
 def data_to_pixel_transform(dpi: int):
     """(scale, x0, y0, size_px): x_px = x0 + scale*x ; y_disp = y0 + scale*y;
-    row = size_px - y_disp.  Queried from matplotlib once per dpi."""
-    if dpi in _TRANSFORM_CACHE:
-        return _TRANSFORM_CACHE[dpi]
-    try:
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-        fig, ax = plt.subplots(figsize=(8, 8))
-        ax.set_aspect("equal")
-        ax.axis("off")
-        ax.set_xlim(-5, 5)
-        ax.set_ylim(-5, 5)
-        fig.canvas.draw()
-        t = ax.transData
-        p0 = t.transform((0.0, 0.0))
-        p1 = t.transform((1.0, 0.0))
-        k = dpi / fig.dpi
-        res = (float((p1[0] - p0[0]) * k), float(p0[0] * k),
-               float(p0[1] * k), int(8 * dpi))
-        plt.close(fig)
-    except Exception:
-        res = (0.616 * dpi, 4.10 * dpi, 3.96 * dpi, int(8 * dpi))
-    _TRANSFORM_CACHE[dpi] = res
-    return res
+    row = size_px - y_disp.  Matplotlib's transform, rescaled to ``dpi``
+    with matplotlib's own arithmetic."""
+    k = dpi / _FIG_DPI
+    return (float((_UNIT_X_PX - _ORIGIN_PX[0]) * k), float(_ORIGIN_PX[0] * k),
+            float(_ORIGIN_PX[1] * k), int(8 * dpi))
 
 
 def _poly_sdf(px, py, verts):

@@ -4,7 +4,7 @@
 The reference (multigraph_generation/) builds matplotlib patch objects and
 runs shapely boolean/search geometry per sample.  Here every sample becomes
 a small fixed-size array bundle (the *scene*): up to 3 shape polygons, up to
-3 mask polygons, up to 24 decoration line segments — which the TPU renderer
+3 mask polygons, up to 24 decoration line segments — which the device renderer
 (renderer.py) rasterizes in one batched program.  All pixel work is on
 device; this module is the tiny host control plane (microseconds/sample)
 that replaces shapely searches with closed-form candidate scans.

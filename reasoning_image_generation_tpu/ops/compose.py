@@ -1,16 +1,17 @@
 # compose.py — question-grid composition (device resize + static overlay).
 """Composes the final puzzle grid (sequence row + query cell + options row).
 
-Rebuilds reference src/layout.py:49-192 TPU-first:
+Rebuilds reference src/layout.py:49-192 as one device program:
 
 - cell geometry, borders, row offsets are compile-time constants per
   (canvas, sequence length, option count) — computed once on host;
 - all text (S0..Sn / A..D labels, the '?' query glyph) and the 1px borders
-  are pre-rendered host-side into ONE static RGBA overlay with cv2 (so the
-  Hershey glyphs are pixel-exact vs the reference) and composited on device
-  with a single blend — no per-sample text rasterization;
-- the per-cell `fit_into_cell` resize (reference src/layout.py:17-31) is
-  `jax.image.resize` with antialiasing (≈ cv2.INTER_AREA for downscale).
+  are pre-rendered host-side into ONE static RGBA overlay with the Hershey
+  simplex strokes of ops/hershey.py (the reference's cv2.putText font and
+  metrics) and composited on device with a single blend — no per-sample
+  text rasterization;
+- the per-cell `fit_into_cell` resize (reference src/layout.py:17-31) is an
+  exact area resample (cv2.INTER_AREA) as two matmuls.
 
 The device path is one jittable function over a whole batch of samples.
 """
@@ -22,6 +23,8 @@ from typing import List, Dict
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from . import hershey
 
 
 @dataclass
@@ -56,12 +59,10 @@ class GridLayout:
 
 
 def _put_text_alpha(rgb, a, text, org, font_scale, thickness):
-    """Rasterize black cv2 Hershey text into the (rgb, a) overlay buffers."""
-    import cv2
+    """Rasterize black Hershey text into the (rgb, a) overlay buffers."""
     h, w = a.shape
     tmp = np.full((h, w), 255, np.uint8)
-    cv2.putText(tmp, text, org, cv2.FONT_HERSHEY_SIMPLEX, font_scale,
-                0, thickness, lineType=cv2.LINE_AA)
+    hershey.put_text(tmp, text, org, font_scale, 0, thickness)
     ta = 1.0 - tmp.astype(np.float32) / 255.0
     # text color black: new_rgb = rgb*(1-ta) + 0*ta, alpha = a + ta*(1-a)
     rgb *= (1.0 - ta)[..., None]
@@ -69,21 +70,18 @@ def _put_text_alpha(rgb, a, text, org, font_scale, thickness):
 
 
 def _make_query_patch(cell_size: int) -> np.ndarray:
-    """'?' cell, byte-identical to reference make_query_image
-    (src/layout.py:33-47)."""
-    import cv2
+    """'?' cell laid out like reference make_query_image
+    (src/layout.py:33-47): same metrics and placement, Hershey strokes."""
     im = np.full((cell_size, cell_size, 3), 255, np.uint8)
-    font = cv2.FONT_HERSHEY_SIMPLEX
     thickness = max(1, cell_size // 80)
     font_scale = cell_size / 100.0
-    (tw, th), _ = cv2.getTextSize("?", font, font_scale, thickness)
+    (tw, th), _ = hershey.text_size("?", font_scale, thickness)
     if tw > cell_size * 0.8:
         font_scale = font_scale * (cell_size * 0.8 / tw)
-        (tw, th), _ = cv2.getTextSize("?", font, font_scale, thickness)
+        (tw, th), _ = hershey.text_size("?", font_scale, thickness)
     x = (cell_size - tw) // 2
     y = (cell_size + th) // 2
-    cv2.putText(im, "?", (x, y), font, font_scale, (0, 0, 0), thickness,
-                lineType=cv2.LINE_AA)
+    hershey.put_text(im, "?", (x, y), font_scale, (0, 0, 0), thickness)
     return im
 
 
@@ -184,7 +182,7 @@ def _area_weights(n_in: int, n_out: int) -> np.ndarray:
     weighted by overlap length — precisely cv2.INTER_AREA's downscale
     model (the reference's fit_into_cell interpolation,
     src/layout.py:26).  Rows sum to 1.  Computed host-side at trace time
-    (static shapes); applied as a matmul so the MXU does the resample.
+    (static shapes); applied as two matmuls.
     """
     sx = n_in / n_out
     w = np.zeros((n_out, n_in), np.float32)
@@ -211,8 +209,11 @@ def fit_into_cell(img: jnp.ndarray, cell: int) -> jnp.ndarray:
     if scale < 1.0:
         wh = jnp.asarray(_area_weights(Hs, new_h))
         ww = jnp.asarray(_area_weights(Ws, new_w))
-        t = jnp.einsum("oh,hwc->owc", wh, img.astype(jnp.float32))
-        resized = jnp.einsum("pw,owc->opc", ww, t)
+        # full f32 precision: a TF32 product rounds 0-255 pixel values
+        hp = jax.lax.Precision.HIGHEST
+        t = jnp.einsum("oh,hwc->owc", wh, img.astype(jnp.float32),
+                       precision=hp)
+        resized = jnp.einsum("pw,owc->opc", ww, t, precision=hp)
     else:
         resized = jax.image.resize(img.astype(jnp.float32),
                                    (new_h, new_w, 3), method="cubic")

@@ -85,6 +85,34 @@ def element_verts(kind, size, angle, flip_h, flip_v, cx, cy):
 _EDGE_CHUNK = 8
 
 
+def _edge_consts(verts):
+    """Per-edge scalars of a padded polygon [..., V, 2] -> [..., 7, V].
+
+    Edge k runs from vertex k to vertex k+1 (the last to vertex 0).  The
+    rows are ax, ay (start), by (end y), ex, ey (direction), 1/|e|^2 and
+    ex/ey, the inverse slope of the scanline crossing (ex/1 where ey == 0;
+    such an edge never crosses).  Both renderers take these from here, so
+    the divisions happen once per edge, in XLA, and the per-pixel work
+    (``_edge_eval``) is multiplies and adds only."""
+    b = jnp.roll(verts, -1, axis=-2)
+    ax, ay = verts[..., 0], verts[..., 1]
+    ex, ey = b[..., 0] - ax, b[..., 1] - ay
+    inv_len2 = 1.0 / (ex * ex + ey * ey + _EPS)
+    slope = ex / jnp.where(ey == 0, 1.0, ey)
+    return jnp.stack([ax, ay, b[..., 1], ex, ey, inv_len2, slope], axis=-2)
+
+
+def _edge_eval(px, py, ax, ay, by, ex, ey, inv_len2, slope):
+    """Squared distance to one edge and its even-odd crossing flag."""
+    pxe = px - ax
+    pye = py - ay
+    t = jnp.clip((pxe * ex + pye * ey) * inv_len2, 0.0, 1.0)
+    dx = pxe - t * ex
+    dy = pye - t * ey
+    cross = ((ay > py) != (by > py)) & (px < ax + pye * slope)
+    return dx * dx + dy * dy, cross
+
+
 def _polygon_field(px, py, verts):
     """Unsigned distance + even-odd inside test for a padded polygon.
 
@@ -92,34 +120,19 @@ def _polygon_field(px, py, verts):
     Returns (dist [H, W], inside [H, W] bool).
 
     Edges are processed in chunks of _EDGE_CHUNK inside a fori_loop so the
-    broadcast intermediate is [H, W, chunk] instead of [H, W, V] — XLA
-    would otherwise materialize ~64 MB per element per frame, which OOMs
-    HBM for production batch sizes (batch x frames x elements).
+    broadcast intermediate is [H, W, chunk] instead of [H, W, V] (a
+    [H, W, V] broadcast is ~64 MB per element per frame at 512^2).
     """
-    V = verts.shape[0]
-    va = verts
-    vb = jnp.roll(verts, -1, 0)
-    n_chunks = V // _EDGE_CHUNK
+    consts = _edge_consts(verts)                     # [7, V]
+    n_chunks = verts.shape[0] // _EDGE_CHUNK
 
     def body(c, carry):
         d2, cross = carry
-        a = jax.lax.dynamic_slice(va, (c * _EDGE_CHUNK, 0), (_EDGE_CHUNK, 2))
-        b = jax.lax.dynamic_slice(vb, (c * _EDGE_CHUNK, 0), (_EDGE_CHUNK, 2))
-        ax, ay = a[:, 0], a[:, 1]
-        bx, by = b[:, 0], b[:, 1]
-        ex, ey = bx - ax, by - ay
-        inv_len2 = 1.0 / (ex * ex + ey * ey + _EPS)
-        pxe = px[..., None] - ax          # [H, W, chunk]
-        pye = py[..., None] - ay
-        t = jnp.clip((pxe * ex + pye * ey) * inv_len2, 0.0, 1.0)
-        dx = pxe - t * ex
-        dy = pye - t * ey
-        d2 = jnp.minimum(d2, jnp.min(dx * dx + dy * dy, axis=-1))
-        cond = (ay > py[..., None]) != (by > py[..., None])
-        safe_ey = jnp.where(ey == 0, 1.0, ey)
-        xint = ax + (py[..., None] - ay) * ex / safe_ey
-        cross = cross + jnp.sum((cond & (px[..., None] < xint)).astype(jnp.int32),
-                                axis=-1)
+        e = jax.lax.dynamic_slice_in_dim(consts, c * _EDGE_CHUNK,
+                                         _EDGE_CHUNK, axis=1)
+        d2c, cc = _edge_eval(px[..., None], py[..., None], *e)
+        d2 = jnp.minimum(d2, jnp.min(d2c, axis=-1))
+        cross = cross + jnp.sum(cc.astype(jnp.int32), axis=-1)
         return d2, cross
 
     d2, crossings = jax.lax.fori_loop(
@@ -127,6 +140,34 @@ def _polygon_field(px, py, verts):
         (jnp.full(px.shape, jnp.inf, jnp.float32),
          jnp.zeros(px.shape, jnp.int32)))
     return jnp.sqrt(d2), (crossings % 2) == 1
+
+
+def _wrap(p, c, size):
+    """Coordinate of the periodic copy of p nearest to c on a torus of
+    ``size``: c + ((p - c + size/2) mod size) - size/2.
+
+    The floored modulo multiplies by the constant 1/size and corrects the
+    quotient with exact compares instead of dividing, so every backend
+    (XLA on CPU or GPU, the Triton kernel) rounds it the same way."""
+    u = p - c + size * 0.5
+    r = u - jnp.floor(u * (1.0 / size)) * size
+    r = jnp.where(r < 0.0, r + size, r)
+    r = jnp.where(r >= size, r - size, r)
+    return c + r - size * 0.5
+
+
+def _dist(dx, dy):
+    """Euclidean length without the division inside ``jnp.hypot``."""
+    return jnp.sqrt(dx * dx + dy * dy)
+
+
+def _full_radius(width):
+    """Full-coverage half-width of a cv2 LINE_AA stroke of ``width``."""
+    return jnp.where(width <= 1.0, 0.0, jnp.ceil(width * 0.5))
+
+
+def _band_alpha(dist, r_full):
+    return jnp.clip((r_full + 1.28 - dist) * (1.0 / 1.28), 0.0, 1.0)
 
 
 def _stroke_alpha(dist, width):
@@ -141,8 +182,17 @@ def _stroke_alpha(dist, width):
     which the 2x-supersampled 'hq' mode hits (strokes scale with the
     supersample ratio, reference src/shapes.py:277).
     """
-    r_full = jnp.where(width <= 1.0, 0.0, jnp.ceil(width * 0.5))
-    return jnp.clip((r_full + 1.28 - dist) * (1.0 / 1.28), 0.0, 1.0)
+    return _band_alpha(dist, _full_radius(width))
+
+
+def _round_u8(x):
+    """Round half to even, clip to 0..255 and cast to u8 (``jnp.round``
+    semantics from floor and compares, which every backend lowers)."""
+    fl = jnp.floor(x)
+    fr = x - fl
+    odd = (fl - 2.0 * jnp.floor(fl * 0.5)) == 1.0
+    up = (fr > 0.5) | ((fr == 0.5) & odd)
+    return jnp.clip(jnp.where(up, fl + 1.0, fl), 0.0, 255.0).astype(jnp.uint8)
 
 
 def _over(canvas, color, alpha):
@@ -175,8 +225,8 @@ def composite_element(canvas, px, py, W, H, kind, size, fill, stroke,
     # canvases away (possible: rule_translate never clips centers,
     # src/rules.py:160-173) is NOT drawn — `wrap_ok` gates those out to
     # stay pixel-faithful.
-    pxw = cx + jnp.mod(px - cx + W * 0.5, float(W)) - W * 0.5
-    pyw = cy + jnp.mod(py - cy + H * 0.5, float(H)) - H * 0.5
+    pxw = _wrap(px, cx, float(W))
+    pyw = _wrap(py, cy, float(H))
     wrap_ok = ((jnp.abs(px - pxw) <= float(W)) &
                (jnp.abs(py - pyw) <= float(H)))
 
@@ -188,7 +238,7 @@ def composite_element(canvas, px, py, W, H, kind, size, fill, stroke,
 
     # ---- analytic circle ----
     r_circ = jnp.maximum(1.0, jnp.round(half))
-    d_circ = jnp.hypot(pxw - cx, pyw - cy) - r_circ
+    d_circ = _dist(pxw - cx, pyw - cy) - r_circ
 
     # ---- analytic crescent ----
     r_out = jnp.maximum(1.0, jnp.round(half))
@@ -197,8 +247,8 @@ def composite_element(canvas, px, py, W, H, kind, size, fill, stroke,
     a = jnp.deg2rad(-angle)
     icx = cx + jnp.round(off * jnp.cos(a))
     icy = cy + jnp.round(off * jnp.sin(a))
-    d_cout = jnp.hypot(pxw - cx, pyw - cy) - r_out
-    d_cin = jnp.hypot(pxw - icx, pyw - icy) - r_in
+    d_cout = _dist(pxw - cx, pyw - cy) - r_out
+    d_cin = _dist(pxw - icx, pyw - icy) - r_in
 
     is_circle = kind == G.CIRCLE
     is_crescent = kind == G.CRESCENT
@@ -289,11 +339,14 @@ def render_frame(state: ElementState, W: int, H: int,
                           use_grid=False, grid_size=grid_size,
                           honor_flip=honor_flip, antialias_mode="fast")
         if scale == 2:
-            # exact cv2 INTER_LANCZOS4 2x downscale as two matmuls (MXU)
+            # exact cv2 INTER_LANCZOS4 2x downscale as two matmuls; full
+            # f32 precision (a TF32 product would move 0-255 pixel values)
             wh = jnp.asarray(_lanczos4_down2_weights(H * 2))
             ww = jnp.asarray(_lanczos4_down2_weights(W * 2))
-            t = jnp.einsum("oh,hwc->owc", wh, hi.astype(jnp.float32))
-            lo = jnp.einsum("pw,owc->opc", ww, t)
+            hp = jax.lax.Precision.HIGHEST
+            t = jnp.einsum("oh,hwc->owc", wh, hi.astype(jnp.float32),
+                           precision=hp)
+            lo = jnp.einsum("pw,owc->opc", ww, t, precision=hp)
         else:
             lo = jax.image.resize(hi.astype(jnp.float32), (H, W, 3),
                                   "lanczos3", antialias=False)

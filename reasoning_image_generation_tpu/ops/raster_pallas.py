@@ -1,26 +1,23 @@
-# raster_pallas.py — Pallas TPU rasterization kernel with tile culling.
+# raster_pallas.py — GPU rasterization kernel (Pallas, Triton route).
 """Tiled SDF rasterizer for ElementState frames.
 
-The jnp renderer (ops/raster.py) evaluates every element at every pixel and
-is HBM-bandwidth bound.  This kernel keeps the whole tile pipeline in VMEM
-and adds two structural optimizations:
+The XLA path (ops/raster.py) evaluates every element at every pixel and
+materialises [H, W, chunk] edge intermediates in device memory.  This
+kernel renders one (TH, TW) tile per program and keeps the canvas, the
+running distance and the crossing count in registers:
 
-1. **(element, tile) culling** — a scalar bbox-vs-tile test (in the
-   wrap-around metric) wrapped in `pl.when` skips whole distance-field
-   evaluations; elements cover only a fraction of the canvas.
-2. **edge-loop polygon evaluation** — vertices live in SMEM; a fori_loop
-   over the polygon's edges (8 for most kinds, 64 for heart/rounded_square)
-   evaluates distance + crossing parity for the whole [TH, TW] tile per
-   iteration as full-width vector ops, carrying the running min-distance
-   and crossing count in vregs.  Measured 2.6x faster than a row-sequential
-   formulation ([nv, TW] work per pixel row + per-row stores), which itself
-   was ~10x faster than a fully scalar per-edge loop.
+1. **(element, tile) culling** — a scalar bbox-vs-tile test in the
+   wrap-around metric skips an element's whole distance field on tiles it
+   cannot touch; elements cover a small fraction of the canvas.
+2. **edge loop over the real vertex count** — 4 to 60 edges instead of the
+   64 padded ones, with the per-edge constants (``raster._edge_consts``)
+   computed outside the kernel, so no division runs per pixel.
 
 Per tile, elements composite in painter's order exactly like
-ops/raster.composite_element: hard fills, cv2-calibrated AA stroke bands,
-analytic circle/crescent branches, plus two-part sequencing, wrap-around via
-coordinate mod, grid snap/lines.  Output parity with the jnp path is
-bit-exact (see tests/test_raster_pallas.py).
+ops/raster.composite_element (hard fills, cv2-calibrated AA stroke bands,
+analytic circle/crescent, two-part 'plus', wrap-around, grid snap/lines),
+through the same helpers, so the two paths differ at most by the
+contraction of a multiply and an add into one FMA.
 """
 from __future__ import annotations
 
@@ -28,35 +25,38 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..utils.state import ElementState
 from . import geometry as G
-from .raster import element_verts
+from .raster import (_band_alpha, _dist, _edge_consts, _edge_eval,
+                     _full_radius, _round_u8, _wrap, element_verts)
 
-NMETA = 20
-TH = 64
-TW = 512
+NMETA = 32
+# per-edge constants (raster._edge_consts rows), padded to a power of two
+NCONST = 8
+# tile and warp count, chosen by measurement on an H100 (PERF.md)
+TH = 16
+TW = 64
+NUM_WARPS = 4
 
-# M_SMALL: part-0 polygon has <= SMALL_V real edges, so the kernel can run
-# its edge pass on an 8-sublane slice instead of all 64 padded edges (the
-# pad repeats vertex 0, making the slice bit-identical for small shapes).
-(M_VALID, M_FILL, M_STROKE, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
- M_ROUT, M_ICX, M_ICY, M_RIN, M_HASP1, M_BX0, M_BX1, M_BY0, M_BY1,
- M_SMALL) = range(NMETA)
-SMALL_V = 8
-# part-1 polygons (only 'plus': two 4-vert rects) must fit the small tier
-assert int(np.asarray(G.NV)[:, 1].max()) <= SMALL_V
+(M_VALID, M_FILL, M_RFULL, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
+ M_ROUT, M_ICX, M_ICY, M_RIN, M_NV1, M_BX0, M_BX1, M_BY0, M_BY1, M_NV0,
+ M_GRID) = range(21)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def prepare_render_data(state: ElementState, W: int, H: int, use_grid,
                         grid_size: int = 3):
-    """Per-frame (unbatched) meta + verts for the kernel.
+    """Per-frame (unbatched) kernel inputs: meta [E, NMETA] and edge
+    constants [E, NPART, NCONST, MAX_VERTS].
 
-    Applies the same grid snap / angle truncation as render_frame
-    (reference src/generator.py:96-122)."""
+    Applies the same grid snap / angle truncation / radii as render_frame
+    and composite_element (reference src/generator.py:96-122)."""
     use_grid = jnp.asarray(use_grid)
     cell_w = W / grid_size
     cell_h = H / grid_size
@@ -66,7 +66,7 @@ def prepare_render_data(state: ElementState, W: int, H: int, use_grid,
     cy = jnp.where(use_grid, jnp.trunc((row + 0.5) * cell_h), state.cy)
     angle = jnp.trunc(state.angle)
 
-    verts, _nv = jax.vmap(element_verts)(
+    verts, nv = jax.vmap(element_verts)(
         state.kind, state.size, angle,
         jnp.zeros_like(state.flip_h), jnp.zeros_like(state.flip_v), cx, cy)
     half = state.size * 0.5
@@ -79,210 +79,136 @@ def prepare_render_data(state: ElementState, W: int, H: int, use_grid,
 
     is_circle = state.kind == G.CIRCLE
     is_crescent = state.kind == G.CRESCENT
+    analytic = is_circle | is_crescent
     stroke_w = jnp.maximum(1.0, jnp.round(state.stroke))
-    # the kernel computes alpha = clip((S + 0.28 - d)/1.28) with S from the
-    # meta; store S = r_full + 1 where r_full = ceil(w/2) (cv2 LINE_AA's
-    # measured full-coverage half-width, see raster._stroke_alpha) so the
-    # kernel stays bit-identical to the jnp path for every stroke width.
-    # For w in {1,2,3} (the sampler's range) S == w, so TPU-verified kernel
-    # outputs are unchanged.
-    stroke_band = jnp.where(stroke_w <= 1.0, 1.0,
-                            jnp.ceil(stroke_w * 0.5) + 1.0)
 
     vx = verts[..., 0].reshape(verts.shape[0], -1)
     vy = verts[..., 1].reshape(verts.shape[0], -1)
     margin = stroke_w + 2.0
-    bx0 = jnp.where(is_circle | is_crescent, cx - r_out, vx.min(-1)) - margin
-    bx1 = jnp.where(is_circle | is_crescent, cx + r_out, vx.max(-1)) + margin
-    by0 = jnp.where(is_circle | is_crescent, cy - r_out, vy.min(-1)) - margin
-    by1 = jnp.where(is_circle | is_crescent, cy + r_out, vy.max(-1)) + margin
+    bx0 = jnp.where(analytic, cx - r_out, vx.min(-1)) - margin
+    bx1 = jnp.where(analytic, cx + r_out, vx.max(-1)) + margin
+    by0 = jnp.where(analytic, cy - r_out, vy.min(-1)) - margin
+    by1 = jnp.where(analytic, cy + r_out, vy.max(-1)) + margin
 
-    meta = jnp.stack([
-        state.valid.astype(jnp.float32),
-        (state.fill & state.valid).astype(jnp.float32),
-        stroke_band,
+    f32 = lambda x: x.astype(jnp.float32)
+    cols = [
+        f32(state.valid), f32(state.fill & state.valid),
+        _full_radius(stroke_w),
         state.color[..., 0], state.color[..., 1], state.color[..., 2],
-        is_circle.astype(jnp.float32), is_crescent.astype(jnp.float32),
+        f32(is_circle), f32(is_crescent),
         cx, cy, r_out, icx, icy, r_in,
-        (_nv[:, 1] > 0).astype(jnp.float32),
-        bx0, bx1, by0, by1,
-        (_nv[:, 0] <= SMALL_V).astype(jnp.float32),
-    ], axis=-1)
-    # coordinate-major vertex arrays for lane-friendly VMEM windows
-    vxs = verts[..., 0]  # [E, NPART, V]
-    vys = verts[..., 1]
-    return meta, vxs, vys
+        f32(nv[:, 1]), bx0, bx1, by0, by1,
+        f32(jnp.where(analytic, 0, nv[:, 0])),
+        jnp.broadcast_to(f32(use_grid), cx.shape),
+    ]
+    meta = jnp.stack(cols, axis=-1)
+    meta = jnp.pad(meta, ((0, 0), (0, NMETA - len(cols))))
+    edges = _edge_consts(verts)                      # [E, NPART, 7, V]
+    edges = jnp.pad(edges, ((0, 0), (0, 0), (0, NCONST - edges.shape[2]),
+                            (0, 0)))
+    return meta, edges
 
 
 def _make_kernel(E: int, W: int, H: int, grid_size: int):
     xs_lines = tuple(float(round(i * W / grid_size)) for i in range(1, grid_size))
     ys_lines = tuple(float(round(i * H / grid_size)) for i in range(1, grid_size))
-    V = G.MAX_VERTS
+    Wf, Hf = float(W), float(H)
 
-    def kernel(samp_ref, meta_ref, vx_ref, vy_ref, out_ref,
-               racc, gacc, bacc, fa, sa):
+    def over(acc, color, a):
+        return tuple(c * (1.0 - a) + k * a for c, k in zip(acc, color))
+
+    def kernel(meta_ref, edge_ref, r_ref, g_ref, b_ref):
         i = pl.program_id(1)
         j = pl.program_id(2)
         y0 = (i * TH).astype(jnp.float32)
         x0 = (j * TW).astype(jnp.float32)
-        py_col = y0 + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0).astype(jnp.float32)
-        px_tile = x0 + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1).astype(jnp.float32)
-        racc[:] = jnp.full((TH, TW), 255.0, jnp.float32)
-        gacc[:] = jnp.full((TH, TW), 255.0, jnp.float32)
-        bacc[:] = jnp.full((TH, TW), 255.0, jnp.float32)
+        py = y0 + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 0).astype(jnp.float32)
+        px = x0 + jax.lax.broadcasted_iota(jnp.int32, (TH, TW), 1).astype(jnp.float32)
+        tcx = x0 + TW * 0.5
+        tcy = y0 + TH * 0.5
+        black = (0.0, 0.0, 0.0)
 
-        for e in range(E):
-            valid = meta_ref[0, e, M_VALID] > 0.0
-            ecx = (meta_ref[0, e, M_BX0] + meta_ref[0, e, M_BX1]) * 0.5
-            ecy = (meta_ref[0, e, M_BY0] + meta_ref[0, e, M_BY1]) * 0.5
-            ehw = (meta_ref[0, e, M_BX1] - meta_ref[0, e, M_BX0]) * 0.5
-            ehh = (meta_ref[0, e, M_BY1] - meta_ref[0, e, M_BY0]) * 0.5
-            tcx = x0 + TW * 0.5
-            tcy = y0 + TH * 0.5
-            dxw = jnp.abs(jnp.mod(tcx - ecx + W * 0.5, float(W)) - W * 0.5)
-            dyw = jnp.abs(jnp.mod(tcy - ecy + H * 0.5, float(H)) - H * 0.5)
-            hit = valid & (dxw <= TW * 0.5 + ehw) & (dyw <= TH * 0.5 + ehh)
+        def draw(e, acc):
+            m = lambda c: meta_ref[e, c]
+            cx, cy = m(M_CX), m(M_CY)
+            pxw = _wrap(px, cx, Wf)
+            pyw = _wrap(py, cy, Hf)
+            # reference wrap parity: copies exist only at the 3x3 offsets
+            # (src/shapes.py:369-375), see raster.composite_element
+            valid_f = ((jnp.abs(px - pxw) <= Wf) &
+                       (jnp.abs(py - pyw) <= Hf)).astype(jnp.float32)
+            fill_f = m(M_FILL) * valid_f
+            r_full = m(M_RFULL)
+            color = (m(M_R), m(M_G), m(M_B))
 
-            @pl.when(hit)
-            def _():
-                cx = meta_ref[0, e, M_CX]
-                cy = meta_ref[0, e, M_CY]
-                stroke = meta_ref[0, e, M_STROKE]
-                is_circle = meta_ref[0, e, M_CIRCLE] > 0.0
-                is_cres = meta_ref[0, e, M_CRESCENT] > 0.0
-                is_poly = jnp.logical_not(is_circle | is_cres)
-                # wrapped pixel coords (tile-wise)
-                pxw_t = cx + jnp.mod(px_tile - cx + W * 0.5, float(W)) - W * 0.5
-                pyw_t = cy + jnp.mod(py_col - cy + H * 0.5, float(H)) - H * 0.5
+            def poly(part, n):
+                def edge(k, carry):
+                    d2, cross = carry
+                    c = [edge_ref[e, part, r, k] for r in range(7)]
+                    d2k, ck = _edge_eval(pxw, pyw, *c)
+                    return (jnp.minimum(d2, d2k),
+                            cross + ck.astype(jnp.int32))
 
-                def poly_part(part, nv_e):
-                    """Edge-loop polygon pass -> writes fa, sa.
+                d2, cross = jax.lax.fori_loop(
+                    0, n, edge,
+                    (jnp.full((TH, TW), jnp.inf, jnp.float32),
+                     jnp.zeros((TH, TW), jnp.int32)))
+                return jnp.sqrt(d2), (cross % 2) == 1
 
-                    Loops over the nv_e edges, each iteration evaluating
-                    the full [TH, TW] tile as wide vector ops (vertex
-                    coords are SMEM scalars).  nv_e ∈ {SMALL_V, V}: shapes
-                    with few real edges trip only 8 times — the pad
-                    repeats vertex 0, whose degenerate edges contribute
-                    the distance-to-vertex-0 (harmless in the min) and no
-                    crossings, so the truncation is bit-identical.
+            # polygons loop over their edges; circle and crescent have
+            # none (M_NV0 == 0) and take the analytic fields below
+            d0, in0 = poly(0, m(M_NV0).astype(jnp.int32))
+            is_circle = m(M_CIRCLE) > 0.0
+            is_cres = m(M_CRESCENT) > 0.0
+            d_out = _dist(pxw - cx, pyw - cy) - m(M_ROUT)
+            d_in = _dist(pxw - m(M_ICX), pyw - m(M_ICY)) - m(M_RIN)
+            fill0 = jnp.where(is_circle, d_out < 0.0,
+                              jnp.where(is_cres, (d_out < 0.0) & (d_in >= 0.0),
+                                        in0)).astype(jnp.float32)
+            s0 = jnp.where(
+                is_circle, _band_alpha(jnp.abs(d_out), r_full),
+                jnp.where(is_cres,
+                          jnp.maximum(_band_alpha(jnp.abs(d_out), r_full),
+                                      _band_alpha(jnp.abs(d_in), r_full)),
+                          _band_alpha(d0, r_full)))
+            acc = over(acc, color, fill0 * fill_f)
+            acc = over(acc, black, s0 * valid_f)
 
-                    Replaced a row-sequential formulation (TH fori_loop
-                    iterations of [nv_e, TW] work + per-row stores) that
-                    measured 2.6x slower on v5e (34.3 -> 13.3 ms per 256
-                    mixed frames): 8x fewer loop trips, full-vreg [TH,TW]
-                    operands, and two whole-tile stores instead of 2*TH
-                    dynamic-slice stores."""
-                    def edge(k, carry):
-                        d2, cross = carry
-                        kb = jnp.where(k == nv_e - 1, 0, k + 1)
-                        ax = vx_ref[0, e, part, k]
-                        ay = vy_ref[0, e, part, k]
-                        bx = vx_ref[0, e, part, kb]
-                        by = vy_ref[0, e, part, kb]
-                        ex = bx - ax
-                        ey = by - ay
-                        inv = 1.0 / (ex * ex + ey * ey + 1e-9)
-                        pxe = pxw_t - ax
-                        pye = pyw_t - ay
-                        t = jnp.clip((pxe * ex + pye * ey) * inv, 0.0, 1.0)
-                        dx = pxe - t * ex
-                        dy = pye - t * ey
-                        d2 = jnp.minimum(d2, dx * dx + dy * dy)
-                        cond = (ay > pyw_t) != (by > pyw_t)
-                        safe_ey = jnp.where(ey == 0.0, 1.0, ey)
-                        xint = ax + (pyw_t - ay) * (ex / safe_ey)
-                        cross = cross + (cond & (pxw_t < xint)).astype(jnp.int32)
-                        return d2, cross
+            def part1(acc):
+                # only 'plus' has a second part: two rectangles drawn in
+                # sequence (reference src/shapes.py:477-509)
+                d1, in1 = poly(1, m(M_NV1).astype(jnp.int32))
+                acc = over(acc, color, in1.astype(jnp.float32) * fill_f)
+                return over(acc, black, _band_alpha(d1, r_full) * valid_f)
 
-                    d2, cross = jax.lax.fori_loop(
-                        0, nv_e, edge,
-                        (jnp.full((TH, TW), jnp.inf, jnp.float32),
-                         jnp.zeros((TH, TW), jnp.int32)))
-                    inside = (cross % 2) == 1
-                    fa[:] = inside.astype(jnp.float32)
-                    sa[:] = jnp.clip(
-                        (stroke + 0.28 - jnp.sqrt(d2)) * (1.0 / 1.28),
-                        0.0, 1.0)
+            return jax.lax.cond(m(M_NV1) > 0.0, part1, lambda a: a, acc)
 
-                small = meta_ref[0, e, M_SMALL] > 0.0
+        def element(e, acc):
+            bx0, bx1 = meta_ref[e, M_BX0], meta_ref[e, M_BX1]
+            by0, by1 = meta_ref[e, M_BY0], meta_ref[e, M_BY1]
+            # tile-centre to bbox-centre distance in the wrap metric; one
+            # pixel of slack keeps the test conservative under rounding
+            dxw = jnp.abs(_wrap(tcx, (bx0 + bx1) * 0.5, Wf) - (bx0 + bx1) * 0.5)
+            dyw = jnp.abs(_wrap(tcy, (by0 + by1) * 0.5, Hf) - (by0 + by1) * 0.5)
+            hit = ((meta_ref[e, M_VALID] > 0.0)
+                   & (dxw <= TW * 0.5 + (bx1 - bx0) * 0.5 + 1.0)
+                   & (dyw <= TH * 0.5 + (by1 - by0) * 0.5 + 1.0))
+            return jax.lax.cond(hit, functools.partial(draw, e),
+                                lambda a: a, acc)
 
-                @pl.when(is_poly & small)
-                def _():
-                    poly_part(0, SMALL_V)
+        white = jnp.full((TH, TW), 255.0, jnp.float32)
+        acc = jax.lax.fori_loop(0, E, element, (white, white, white))
 
-                @pl.when(is_poly & jnp.logical_not(small))
-                def _():
-                    poly_part(0, V)
-
-                @pl.when(is_circle)
-                def _():
-                    d = jnp.sqrt((pxw_t - cx) ** 2 + (pyw_t - cy) ** 2) \
-                        - meta_ref[0, e, M_ROUT]
-                    fa[:] = (d < 0.0).astype(jnp.float32)
-                    sa[:] = jnp.clip((stroke + 0.28 - jnp.abs(d)) * (1.0 / 1.28),
-                                     0.0, 1.0)
-
-                @pl.when(is_cres)
-                def _():
-                    icx = meta_ref[0, e, M_ICX]
-                    icy = meta_ref[0, e, M_ICY]
-                    d_out = jnp.sqrt((pxw_t - cx) ** 2 + (pyw_t - cy) ** 2) \
-                        - meta_ref[0, e, M_ROUT]
-                    d_in = jnp.sqrt((pxw_t - icx) ** 2 + (pyw_t - icy) ** 2) \
-                        - meta_ref[0, e, M_RIN]
-                    fa[:] = ((d_out < 0.0) & (d_in >= 0.0)).astype(jnp.float32)
-                    sa[:] = jnp.maximum(
-                        jnp.clip((stroke + 0.28 - jnp.abs(d_out)) * (1.0 / 1.28),
-                                 0.0, 1.0),
-                        jnp.clip((stroke + 0.28 - jnp.abs(d_in)) * (1.0 / 1.28),
-                                 0.0, 1.0))
-
-                # reference wrap parity: copies exist only at the 3x3
-                # offsets (src/shapes.py:369-375) — pixels whose nearest
-                # periodic copy is >= 2 canvases from the element's true
-                # position are not covered (see raster.composite_element)
-                wrap_ok = ((jnp.abs(px_tile - pxw_t) <= float(W)) &
-                           (jnp.abs(py_col - pyw_t) <= float(H))
-                           ).astype(jnp.float32)
-
-                def composite():
-                    a = fa[:] * meta_ref[0, e, M_FILL] * wrap_ok
-                    racc[:] = racc[:] * (1.0 - a) + meta_ref[0, e, M_R] * a
-                    gacc[:] = gacc[:] * (1.0 - a) + meta_ref[0, e, M_G] * a
-                    bacc[:] = bacc[:] * (1.0 - a) + meta_ref[0, e, M_B] * a
-                    s = sa[:] * wrap_ok
-                    racc[:] = racc[:] * (1.0 - s)
-                    gacc[:] = gacc[:] * (1.0 - s)
-                    bacc[:] = bacc[:] * (1.0 - s)
-
-                composite()
-
-                @pl.when(meta_ref[0, e, M_HASP1] > 0.0)
-                def _():
-                    # part 1 exists only for 'plus' (two 4-vert rects,
-                    # reference src/shapes.py:477-509) -> always small
-                    poly_part(1, SMALL_V)
-                    composite()
-
-        @pl.when(samp_ref[0, 0, 0] > 0.0)
-        def _():
-            on = jnp.zeros((TH, TW), bool)
-            for x in xs_lines:
-                on = on | (px_tile == x)
-            for y in ys_lines:
-                on = on | (py_col == y)
-            keep = 1.0 - on.astype(jnp.float32)
-            racc[:] = racc[:] * keep
-            gacc[:] = gacc[:] * keep
-            bacc[:] = bacc[:] * keep
-
-        def to_u8(x):
-            # Mosaic lacks a direct f32->u8 cast; go through i32
-            return jnp.clip(jnp.round(x), 0, 255).astype(jnp.int32).astype(jnp.uint8)
-
-        out_ref[0, 0] = to_u8(racc[:])
-        out_ref[0, 1] = to_u8(gacc[:])
-        out_ref[0, 2] = to_u8(bacc[:])
+        # grid lines (1px black), reference src/generator.py:111-122
+        on = jnp.zeros((TH, TW), jnp.bool_)
+        for x in xs_lines:
+            on = on | (px == x)
+        for y in ys_lines:
+            on = on | (py == y)
+        la = (on & (meta_ref[0, M_GRID] > 0.0)).astype(jnp.float32)
+        acc = over(acc, black, la)
+        for ref, c in zip((r_ref, g_ref, b_ref), acc):
+            ref[...] = _round_u8(c)
 
     return kernel
 
@@ -299,34 +225,33 @@ def render_batch_pallas(states: ElementState, W: int, H: int, use_grid,
     so padded pixels just render wrapped duplicates and are cropped off.
     (Matches the reference's arbitrary canvas_size, src/config.py:27.)
     """
-    N = states.kind.shape[0]
-    E = states.kind.shape[1]
+    N, E = states.kind.shape[:2]
+    EP = _pow2(E)
     Hp = -(-H // TH) * TH
     Wp = -(-W // TW) * TW
-    use_grid = jnp.asarray(use_grid)
-    meta, vxs, vys = jax.vmap(
+    meta, edges = jax.vmap(
         lambda s, g: prepare_render_data(s, W, H, g, grid_size)
-    )(states, use_grid)
-    samp = jnp.stack([use_grid.astype(jnp.float32),
-                      jnp.zeros(N, jnp.float32)], axis=-1)[:, None, :]
+    )(states, jnp.asarray(use_grid))
+    # padded element slots carry valid = 0 and are culled
+    meta = jnp.pad(meta, ((0, 0), (0, EP - E), (0, 0)))
+    edges = jnp.pad(edges, ((0, 0), (0, EP - E), (0, 0), (0, 0), (0, 0)))
 
-    kernel = _make_kernel(E, W, H, grid_size)
-    out = pl.pallas_call(
-        kernel,
+    plane = jax.ShapeDtypeStruct((N, Hp, Wp), jnp.uint8)
+    plane_spec = pl.BlockSpec((None, TH, TW), lambda n, i, j: (n, i, j))
+    r, g, b = pl.pallas_call(
+        _make_kernel(E, W, H, grid_size),
         grid=(N, Hp // TH, Wp // TW),
         in_specs=[
-            pl.BlockSpec((1, 1, 2), lambda n, i, j: (n, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, E, NMETA), lambda n, i, j: (n, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, E, 2, G.MAX_VERTS), lambda n, i, j: (n, 0, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, E, 2, G.MAX_VERTS), lambda n, i, j: (n, 0, 0, 0),
-                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((None, EP, NMETA), lambda n, i, j: (n, 0, 0)),
+            pl.BlockSpec((None, EP, G.NPART, NCONST, G.MAX_VERTS),
+                         lambda n, i, j: (n, 0, 0, 0, 0)),
         ],
-        out_specs=pl.BlockSpec((1, 3, TH, TW), lambda n, i, j: (n, 0, i, j)),
-        out_shape=jax.ShapeDtypeStruct((N, 3, Hp, Wp), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((TH, TW), jnp.float32) for _ in range(5)],
+        out_specs=[plane_spec] * 3,
+        out_shape=[plane] * 3,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=interpret,
-    )(samp, meta, vxs, vys)
-    return jnp.transpose(out[:, :, :H, :W], (0, 2, 3, 1))
+        name="rpm_render",
+    )(meta, edges)
+    return jnp.stack([r, g, b], axis=-1)[:, :H, :W]

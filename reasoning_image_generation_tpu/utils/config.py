@@ -3,7 +3,7 @@
 
 ``GenConfig`` keeps the exact field names / defaults of the reference
 dataclass (reference src/config.py:23-52) so downstream tooling and emitted
-JSON stay compatible, and adds the TPU-batching knobs the reference does not
+JSON stay compatible, and adds the device-batching knobs the reference does not
 have (batch_size, device options).
 
 ``DEFAULT_CATEGORIES`` mirrors the two-level rule taxonomy of
@@ -81,7 +81,7 @@ class GenConfig:
     num_options: int = 4
     shuffle_options: bool = True
 
-    # ---- TPU build extensions (not in reference schema) ----
+    # ---- batched-build extensions (not in reference schema) ----
     # samples rendered per XLA program invocation
     batch_size: int = 64
     # max element slots in the struct-of-arrays state (reference worst case
@@ -93,8 +93,9 @@ class GenConfig:
     # per-sample wall clock guard is meaningless in a batched XLA program;
     # kept for schema compatibility with getattr probes.
     max_generation_time: int = 30
-    # rasterizer backend: 'auto' picks the Pallas TPU kernel on TPU
-    # (18x the XLA path; ops/raster_pallas.py) and the jnp path elsewhere
+    # rasterizer: 'auto' picks the Pallas kernel on a GPU
+    # (ops/raster_pallas.py) and the jnp path on the CPU; 'pallas' and
+    # 'jnp' force one (utils/backend.auto_renderer)
     renderer: str = "auto"
     # sparse device->host transfer codec (ops/sparse.py): pack frames to a
     # 1-bit block mask + non-background 8x8 blocks; ~2x fewer bytes on the
@@ -145,7 +146,7 @@ class GenConfig:
     # in the key); False falls back to plain jit dispatch
     aot: bool = True
     # multi-chip data parallelism: 'auto' shards the batch over a 1-D device
-    # mesh whenever >1 device is visible (the TPU-native equivalent of the
+    # mesh whenever >1 device is visible (the device-parallel equivalent of the
     # reference's process-pool fan-out, src/cli.py:85-129); True forces it,
     # False pins single-device execution
     use_mesh: Any = "auto"

@@ -28,7 +28,7 @@ class JsonFormatter(logging.Formatter):
         return json.dumps(entry, ensure_ascii=False)
 
 
-def setup_logger(name: str = "rig_tpu", log_level: str = "INFO",
+def setup_logger(name: str = "rig", log_level: str = "INFO",
                  log_file: str | None = None,
                  json_log_file: str | None = None) -> logging.Logger:
     logger = logging.getLogger(name)

@@ -1,16 +1,16 @@
-# _dcn_worker.py — subprocess body for the multi-process DCN smoke test.
+# _dcn_worker.py — subprocess body for the multi-process smoke test.
 """Run as `python tests/_dcn_worker.py <pid> <nproc> <port>` with
 XLA_FLAGS=--xla_force_host_platform_device_count=2 in the environment.
 
 Exercises the real multi-host path of parallel/mesh.py over jax.distributed
-with two local CPU processes (DCN = loopback TCP, collectives = gloo):
+with two local CPU processes (network = loopback TCP, collectives = gloo):
 `distributed_init` -> `make_hybrid_mesh` -> `host_shard_ids` ->
 `sharded_dedup_mask` over the ("host", "data") axes, i.e. a keep decision
 that crosses process boundaries.  Prints one JSON line the parent asserts on.
 
 The reference has no distributed backend at all (SURVEY.md §2.3) — its
 scale-out is fork-per-sample-range (reference src/cli.py:85-129); this is
-the TPU-native replacement's correctness evidence.
+the device-mesh replacement's correctness evidence.
 """
 import json
 import sys
@@ -21,8 +21,7 @@ def main() -> None:
 
     import jax
     # Order matters: platform + collective backend must be set before the
-    # distributed service touches any XLA client.  (The TPU plugin ignores
-    # the JAX_PLATFORMS env var, so this must be the config API.)
+    # distributed service touches any XLA client.
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
@@ -39,7 +38,7 @@ def main() -> None:
 
     mesh = make_hybrid_mesh()
     assert dict(mesh.shape) == {"host": nproc, "data": 2}, mesh.shape
-    # each mesh row must be process-pure, else "data" collectives cross DCN
+    # each mesh row must be process-pure, else "data" collectives cross hosts
     for row in np.asarray(mesh.devices):
         owners = {d.process_index for d in row}
         assert len(owners) == 1, f"mixed-process mesh row: {owners}"

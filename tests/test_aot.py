@@ -25,15 +25,15 @@ def aot_sandbox(tmp_path, monkeypatch):
     """Point the AOT dir at a tmp sandbox so tests never pollute (or get
     polluted by) the real cache."""
     monkeypatch.setattr(aot, "aot_dir", lambda: str(tmp_path / "aot"))
-    # the cache is default-off on the CPU backend (remote-compiled CPU
-    # payloads are machine-specific and can fail at dispatch when loaded
-    # by a LATER process); same-process sandbox round-trips are safe, so
+    # the cache is default-off on the CPU backend (CPU payloads are
+    # machine-specific and can fail at dispatch when loaded by a LATER
+    # process on another host); same-process sandbox round-trips are safe, so
     # the tests force it on to pin the machinery
     monkeypatch.setenv("RIG_AOT_CPU", "1")
     # Isolate the persistent XLA compilation cache as well: if an earlier
     # test constructed a generator (which enables the real cache dir),
-    # lower().compile() here can return a REMOTE-compiled entry from a
-    # previous session whose machine features don't match this host, and
+    # lower().compile() here can return an entry compiled on another host
+    # in a previous session whose machine features don't match, and
     # serializing that into the sandbox fails at load (measured:
     # "+prefer-no-gather is not supported on the host machine").
     from jax._src import compilation_cache as cc
@@ -44,7 +44,7 @@ def aot_sandbox(tmp_path, monkeypatch):
     # no-op — reset so the sandbox dir actually takes effect
     cc.reset_cache()
     # ...and drop in-memory executables: an earlier test may have loaded a
-    # remote-compiled persistent-cache entry for the same program, and the
+    # persistent-cache entry from another host for the same program, and the
     # jit cache would hand it back here regardless of the cache-dir switch
     jax.clear_caches()
     yield tmp_path / "aot"
@@ -212,3 +212,16 @@ def test_aot_tag_covers_layout_content():
                          show_border=sb)._aot_tag(2)
             for sl, sb in ((True, True), (False, True), (True, False))}
     assert len(tags) == 3
+
+
+def test_probe_builds_typed_key_inputs():
+    """The load probe must build inputs for typed PRNG key avals (the
+    pipelines' per-sample keys): np.zeros cannot, and every RPM leaf entry
+    then failed to load and silently recompiled."""
+    from reasoning_image_generation_tpu.models.rpm.pipeline import sample_keys
+    keys = sample_keys(0, np.arange(4))
+    jf = jax.jit(lambda k, g: jax.vmap(jax.random.uniform)(k) + g)
+    avals = (jax.ShapeDtypeStruct(keys.shape, keys.dtype),
+             jax.ShapeDtypeStruct((4,), jnp.float32))
+    compiled = jf.lower(*avals).compile()
+    aot._probe_execute(compiled, avals)  # raises on a bad input build

@@ -46,3 +46,24 @@ def test_generate_sample_reference_api(tmp_path):
     assert meta2["rule"] == "平移"
     assert meta2["category_path"] == ["图形相似", "位置变换", "平移"]
     assert os.path.exists(os.path.join(meta2["sample_dir"], "meta.json"))
+
+
+def test_clis_run_without_cv2_matplotlib_pil(tmp_path, monkeypatch):
+    """Both CLIs' main paths import nothing beyond the core packages: with
+    cv2, matplotlib and PIL unimportable they still write their outputs."""
+    import sys
+    for name in ("cv2", "matplotlib", "matplotlib.pyplot", "PIL",
+                 "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    from reasoning_image_generation_tpu import cli
+    from reasoning_image_generation_tpu.models.multigraph import cli as mg_cli
+    out = str(tmp_path / "rpm")
+    cli.main(["--out_dir", out, "--n", "3", "--seed", "5",
+              "--batch_size", "3"])
+    idx = json.load(open(os.path.join(out, "index.json")))
+    assert len(idx) == 3 and all(os.path.exists(m["grid_path"]) for m in idx)
+    mg_out = str(tmp_path / "mg")
+    mg_cli.main(["--n", "2", "--out_dir", mg_out, "--dpi", "25",
+                 "--batch_size", "2", "--modes", "random,nested"])
+    assert len(os.listdir(os.path.join(mg_out, "images"))) == 2
+    assert len(os.listdir(os.path.join(mg_out, "params"))) == 2

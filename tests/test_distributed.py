@@ -1,8 +1,8 @@
-# test_distributed.py — real multi-process DCN smoke test (2 CPU processes).
+# test_distributed.py — real multi-process smoke test (2 CPU processes).
 """Spawns two jax.distributed processes (4 virtual CPU devices each) and
 verifies the multi-host scaffolding end to end: coordinator bring-up,
 (host, data) hybrid mesh shape, disjoint host export shards, and a global
-dedup decision whose all_gather crosses the process (DCN) boundary.
+dedup decision whose all_gather crosses the process boundary.
 Covers VERDICT r1 weak-item 5 / next-round item 9."""
 import json
 import os

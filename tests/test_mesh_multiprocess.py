@@ -1,8 +1,9 @@
-# test_mesh_multiprocess.py — real 2-process DCN smoke test.
+# test_mesh_multiprocess.py — real 2-process smoke test.
 """Spawns two jax.distributed CPU processes (loopback coordinator, gloo
 collectives, 2 forced host devices each -> a 2x2 hybrid mesh) and asserts:
 
-- `make_hybrid_mesh` rows are process-pure (ICI axis never crosses DCN),
+- `make_hybrid_mesh` rows are process-pure (the data axis never crosses
+  processes),
 - `host_shard_ids` gives disjoint, covering export shards,
 - `sharded_dedup_mask` over ("host", "data") makes a GLOBAL keep decision:
   a duplicate pair split across the two hosts is detected, and the corpus

@@ -24,7 +24,7 @@ def test_mg_generator_builds_mesh_and_matches_unsharded(tmp_path):
             out.append(over[i] if i in over else frames.unpack(i, (H, W)))
         return np.stack(out)
 
-    gen = GeometryGeneratorTPU(renderer="jnp")
+    gen = GeometryGeneratorTPU()
     assert gen.mesh is not None and gen.mesh.size == len(jax.local_devices())
 
     seeds = list(range(8))

@@ -5,8 +5,7 @@
 # Three configurations, each in its own subprocess (cold jit caches):
 #   nocache : AOT entries cleared, --no_aot      -> trace + lower + XLA
 #             persistent-cache lookup per program (the pre-AOT cold start;
-#             a truly cold MACHINE additionally pays the remote compile
-#             service, minutes per leaf program — see docs/PERFORMANCE.md)
+#             a truly cold machine additionally compiles every program)
 #   aotcold : AOT entries cleared, AOT on        -> same, plus serialize
 #   aotwarm : AOT entries present, AOT on        -> deserialize only
 #

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 # prewarm.py — bake every production program shape into the persistent
-# XLA compilation cache (utils/cache.py, ~/.cache/rig_tpu_xla).
+# XLA compilation cache (utils/cache.py: $JAX_COMPILATION_CACHE_DIR, else
+# <repo>/.jax_cache).
 #
-# The per-leaf pipeline programs cost minutes each to compile on a cold
-# machine (docs/PERFORMANCE.md); the persistent cache loads them in ~2 s.
+# Every per-leaf pipeline program compiles on a cold machine; the
+# persistent cache loads them in seconds.
 # Run this once per deployment image (or ship the cache directory with
 # it) and a cold `python -m reasoning_image_generation_tpu.cli --n 1000`
 # waits seconds, not an hour, before its first batch.
